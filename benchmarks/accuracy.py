@@ -1,18 +1,21 @@
-"""Accuracy report: precision policies vs the float64 oracle, on device.
+"""Accuracy report: precision policies and dot algorithms vs float64 scipy.
 
 The reference's acceptance oracle is scipy at rtol=1e-5/atol=1e-8
-(``/root/reference/tests/test_basic.py:54``).  On TPU this framework computes
-under precision policies (``config.Precision``); this harness measures, on
-the real backend, the max relative error of each policy against the f64
-scipy oracle at the reference's benchmark sizes -- the committed evidence
-behind the policy docstrings' error claims.
+(``/root/reference/tests/test_basic.py:54``).  This harness measures on the
+GPU the max relative error against the f64 scipy product of
 
-Max relative error here = max |got - ref| / (|ref| + atol_floor), with
-atol_floor = 1e-8 matching the oracle's atol.
+* the three policies of ``config.Precision`` through ``spgemm_dense_out``:
+  AUTO (f64 operands), FAST (f32 operands, f32 product at 'highest') and
+  SPLIT (hi/lo f32 split);
+* float32 products under each candidate ``lax.DotAlgorithmPreset`` (TF32
+  is what an f32 dot with no stated precision may get on the GPU).
+
+Max relative error = max |got - ref| / (|ref| + 1e-8), the floor matching
+the oracle's atol.  Exits non-zero without a GPU.
 
 Usage::
 
-    python benchmarks/accuracy.py [--json benchmarks/results_accuracy_tpu.json]
+    python benchmarks/accuracy.py [--json chiprun_out/accuracy.json]
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import subprocess
 import sys
 
 import numpy as np
@@ -30,18 +34,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import jax.numpy as jnp
 
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.environ.get(
-        "SMM_TPU_CACHE_DIR",
-        os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"),
-    ),
-)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-
-import sparse_matrix_mult_tpu as smm
+import sparse_matrix_mult_tpu  # noqa: F401  (enables x64)
+from sparse_matrix_mult_tpu.ops.convert import csr_to_dense
 from sparse_matrix_mult_tpu.ops.dense_path import spgemm_dense_out
-from sparse_matrix_mult_tpu.ops.pallas.triu_matmul import matmul_triu
 from sparse_matrix_mult_tpu.types import from_scipy
 
 CONFIGS = [
@@ -51,9 +46,19 @@ CONFIGS = [
 ]
 ORACLE_RTOL = 1e-5  # /root/reference/tests/test_basic.py:54
 ATOL_FLOOR = 1e-8
+_A = jax.lax.DotAlgorithmPreset
+ALGORITHMS = {
+    "tf32": _A.TF32_TF32_F32,
+    "tf32x3": _A.TF32_TF32_F32_X3,
+    "bf16x3": _A.BF16_BF16_F32_X3,
+    "bf16x6": _A.BF16_BF16_F32_X6,
+    "bf16x9": _A.BF16_BF16_F32_X9,
+    "f32": _A.F32_F32_F32,
+}
 
 
-def max_rel(got: np.ndarray, ref: np.ndarray) -> float:
+def max_rel(got, ref: np.ndarray) -> float:
+    got = np.asarray(got, np.float64)
     return float(np.max(np.abs(got - ref) / (np.abs(ref) + ATOL_FLOOR)))
 
 
@@ -61,64 +66,39 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--json", default=None)
     args = ap.parse_args()
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        sys.exit(f"accuracy.py measures the GPU; JAX found {dev.platform}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True,
+    ).stdout.strip()
+    print(f"# {smi}; {dev.device_kind} x{len(jax.devices())}; jax {jax.__version__}")
 
     rows = []
     for n, density in CONFIGS:
         A = sp.random(n, n, density=density, format="csr", random_state=1)
         B = sp.random(n, n, density=density, format="csr", random_state=2)
         ref = (A @ B).toarray()  # scipy f64 oracle
-
-        a32 = from_scipy(A, dtype=jnp.float32)
-        b32 = from_scipy(B, dtype=jnp.float32)
-
-        row = {
-            "config": f"{n}x{n}_d{density}",
-            "backend": jax.default_backend(),
-        }
-        # FAST: f32 operands, 6-pass (HIGHEST) MXU matmul.
-        got = np.asarray(spgemm_dense_out(a32, b32, precision="fast"), np.float64)
-        row["fast_max_rel"] = max_rel(got, ref)
-
-        # SPLIT: double-f32 operand split (values split on device).
-        a64 = from_scipy(A)
-        b64 = from_scipy(B)
-        got = np.asarray(spgemm_dense_out(a64, b64, precision="split"), np.float64)
-        row["split_max_rel"] = max_rel(got, ref)
-
-        # split3: double-bf16 3-pass in the triu kernel (explicit FAST only).
-        if jax.default_backend() == "tpu":
-            from sparse_matrix_mult_tpu.ops.convert import csr_to_dense
-
-            ad = csr_to_dense(a32, jnp.float32)
-            bd = csr_to_dense(b32, jnp.float32)
-            got = np.triu(np.asarray(matmul_triu(ad, bd, split3=True), np.float64))
-            row["triu_split3_max_rel"] = max_rel(np.triu(got), np.triu(ref))
-            got6 = np.triu(np.asarray(matmul_triu(ad, bd, split3=False), np.float64))
-            row["triu_f32_max_rel"] = max_rel(np.triu(got6), np.triu(ref))
-
-            # What an explicit-FAST API caller ACTUALLY gets after the
-            # round-5 size/term gate (split3 where the error model clears
-            # the oracle, 6-pass f32 where it does not).
-            from sparse_matrix_mult_tpu.ops.dense_path import _split3_within_oracle
-
-            row["split3_gate_engaged"] = bool(_split3_within_oracle(a32, b32))
-            got_api = np.asarray(
-                spgemm_dense_out(a32, b32, symmetric=True, precision="fast"),
-                np.float64,
-            )
-            row["api_fast_sym_max_rel"] = max_rel(np.triu(got_api), np.triu(ref))
-
+        a64, b64 = from_scipy(A), from_scipy(B)
+        row = {"config": f"{n}x{n}_d{density}", "device_kind": dev.device_kind}
+        for policy in ("auto", "fast", "split"):
+            got = spgemm_dense_out(a64, b64, precision=policy)
+            row[f"{policy}_max_rel"] = max_rel(got, ref)
+        ad = csr_to_dense(a64, jnp.float32)
+        bd = csr_to_dense(b64, jnp.float32)
+        for name, alg in ALGORITHMS.items():
+            f = jax.jit(lambda x, y, alg=alg: jnp.dot(x, y, precision=alg))
+            try:
+                row[f"dot_{name}_max_rel"] = max_rel(f(ad, bd), ref)
+            except Exception as e:  # an algorithm this backend refuses
+                row[f"dot_{name}_max_rel"] = f"refused: {type(e).__name__}"
         row["oracle_rtol"] = ORACLE_RTOL
-        row["fast_inside_oracle"] = row["fast_max_rel"] < ORACLE_RTOL
-        row["split_inside_oracle"] = row["split_max_rel"] < ORACLE_RTOL
-        if "api_fast_sym_max_rel" in row:
-            row["api_fast_sym_inside_oracle"] = (
-                row["api_fast_sym_max_rel"] < ORACLE_RTOL
-            )
         rows.append(row)
-        print(json.dumps(row))
+        print(json.dumps(row), flush=True)
 
     if args.json:
+        os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:
             json.dump(rows, f, indent=2)
         print(f"wrote {args.json}")

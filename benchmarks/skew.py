@@ -3,7 +3,7 @@
 The reference partitions rows into contiguous equal-COUNT ranges
 (``limits``, ``/root/reference/src/workdivision.cpp:45-86``) and papers over
 the resulting imbalance with OpenMP ``schedule(dynamic)``
-(``sparse_sparse_sparse.cpp:233``).  TPU dispatches are static, so this
+(``sparse_sparse_sparse.cpp:233``).  Device dispatches are static, so this
 framework balances chunk boundaries by *flops* (partial products) instead
 (:func:`sparse_matrix_mult_tpu.api._flop_chunk_bounds`).
 
@@ -37,15 +37,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 import jax.numpy as jnp
-
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.environ.get(
-        "SMM_TPU_CACHE_DIR",
-        os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"),
-    ),
-)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
 import sparse_matrix_mult_tpu as smm
 from sparse_matrix_mult_tpu import api

@@ -89,7 +89,7 @@ def main():
 
         # Large-sparse engine: identical result, but nothing is ever
         # densified -- B blocks ring-rotate as packed CSR (the engine for
-        # matrices whose dense shard panels would not fit HBM).
+        # matrices whose dense shard panels would not fit device memory).
         from sparse_matrix_mult_tpu.parallel.distributed import (
             spgemm_csr_distributed_sparse,
         )

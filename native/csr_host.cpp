@@ -2,7 +2,7 @@
 //
 // The reference implements its entire compute core in C++/OpenMP
 // (/root/reference/src/*.cpp).  In this framework the compute core is
-// XLA/Pallas on the TPU; the native layer instead owns the host-side
+// XLA on the accelerator; the native layer instead owns the host-side
 // runtime work that feeds the device: structure analysis (flop counting for
 // partitioning and capacity planning), CSR stitching for the out-of-core
 // row-chunked path, and format filtering.  All functions are C-ABI and
@@ -298,10 +298,9 @@ void smm_spgemm_fill(
 // When the device product is dense-ish, downloading the dense f32 panel is
 // fewer bytes than packed CSR (4 B/element vs 8-12 B/entry), so the API
 // fetches the panel and packs on host.  scipy's own csr_matrix(dense) is
-// serial and ~24 s at 1e8 nnz on this host; this two-phase OpenMP pack is
-// memory-bandwidth bound (~1-2 s).  Host analogue of the device extraction
-// kernels (ops/pallas/convert_kernels.py); structurally the same
-// count -> prefix -> fill pipeline.
+// serial; this two-phase OpenMP pack is memory-bandwidth bound.  Host
+// analogue of the device extraction (ops/convert.py dense_to_csr);
+// structurally the same count -> prefix -> fill pipeline.
 // ---------------------------------------------------------------------------
 
 // Phase 1: per-row nonzero counts of an (m, n) row-major panel.

@@ -1,6 +1,6 @@
-"""sparse_matrix_mult_tpu: a TPU-native sparse matrix multiplication framework.
+"""sparse_matrix_mult_tpu: a sparse matrix multiplication framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 vineety/sparse_matrix_mult (CPU/OpenMP/ctypes), providing its five routines
 
 1. sparse x sparse -> sparse CSR
@@ -10,15 +10,14 @@ vineety/sparse_matrix_mult (CPU/OpenMP/ctypes), providing its five routines
 
 behind the identical public entry point :func:`sparse_matrix_multiply`, plus a
 device-resident, jit-composable API (:class:`CSRMatrix`, :func:`multiply`,
-:func:`triple_product`) and multi-chip execution via ``jax.sharding`` meshes
+:func:`triple_product`) and multi-device execution via ``jax.sharding`` meshes
 (:mod:`sparse_matrix_mult_tpu.parallel`).
 
 float64 note: the reference computes strictly in f64
 (``/root/reference/include/matrix_def.h:21-23``).  This package enables JAX
-x64 at import so scipy round-trips preserve f64, while TPU kernels compute
-under a configurable precision policy (f32 six-pass by default, which meets
-the reference test-suite oracle of rtol=1e-5/atol=1e-8).  Set
-``SMM_TPU_NO_X64=1`` before import to opt out.
+x64 at import so scipy round-trips preserve f64, and by default computes in
+the operand dtype (see :class:`Precision`).  Set ``SMM_TPU_NO_X64=1`` before
+import to opt out.
 """
 
 import os as _os
@@ -28,43 +27,38 @@ import jax as _jax
 if not _os.environ.get("SMM_TPU_NO_X64"):
     _jax.config.update("jax_enable_x64", True)
 
-# Persistent compilation cache: TPU compiles of the larger pipelines take
-# tens of seconds (minutes over a remote-compile link); cache them across
-# processes.  Opt out with SMM_TPU_NO_CACHE=1 or point SMM_TPU_CACHE_DIR
-# elsewhere.  No-op if the user already configured a cache dir.
-if not _os.environ.get("SMM_TPU_NO_CACHE"):
-    if not _jax.config.jax_compilation_cache_dir:
-        _jax.config.update(
-            "jax_compilation_cache_dir",
-            _os.environ.get(
-                "SMM_TPU_CACHE_DIR",
-                _os.path.join(_os.path.expanduser("~"), ".cache", "smm_tpu_jax"),
-            ),
-        )
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+
+def _checkout_cache_dir():
+    """``<checkout>/.jax_cache`` when the package runs from a source checkout,
+    else ``None``."""
+    root = _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__)))
+    if _os.path.exists(_os.path.join(root, "pyproject.toml")):
+        return _os.path.join(root, ".jax_cache")
+    return None
+
+
+# Persistent compilation cache: JAX itself reads JAX_COMPILATION_CACHE_DIR;
+# only when that is unset does the package keep the cache in its checkout.
+if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    _cache_dir = _checkout_cache_dir()
+    if _cache_dir:
+        _jax.config.update("jax_compilation_cache_dir", _cache_dir)
 
 from ._version import __version__
 from .api import get_last_route, multiply, sparse_matrix_multiply, triple_product
 from .config import Config, Precision, get_config, set_config
 from .types import CSRMatrix, bucket_capacity, from_dense, from_scipy, to_scipy
-from .ops.pallas.bsr_spgemm import bsr_matmul_dense as bsr_multiply_dense
-from .types_bsr import BSRMatrix, bsr_from_dense, bsr_from_scipy, bsr_to_dense
 
 __all__ = [
     "sparse_matrix_multiply",
     "multiply",
     "triple_product",
     "get_last_route",
-    "bsr_multiply_dense",
     "CSRMatrix",
     "from_scipy",
     "to_scipy",
     "from_dense",
     "bucket_capacity",
-    "BSRMatrix",
-    "bsr_from_scipy",
-    "bsr_from_dense",
-    "bsr_to_dense",
     "Config",
     "Precision",
     "get_config",

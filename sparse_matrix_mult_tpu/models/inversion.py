@@ -5,7 +5,7 @@ products of covariance matrices in *linear atmospheric inverse problems*
 (``/root/reference/README.md:5`` and the companion paper Yadav & Michalak,
 GMD 2016, ``/root/reference/README.md:140``).  The reference ships only the
 kernel (``triple_product``); users assemble the inversion by hand.  Here the
-full batch-inversion step is provided as a jit-compiled TPU pipeline:
+full batch-inversion step is provided as a jit-compiled device pipeline:
 
 Given observations ``y = H x + eps`` with sparse Jacobian H (n_obs x n_state),
 prior covariance Q (sparse, n_state x n_state), prior mean ``x0`` and
@@ -14,7 +14,7 @@ observation noise covariance R (diagonal, n_obs):
 * ``HQHt = H . Q . H^T``          -- the fused triple product (never
   materializes H.Q), mirrored to full for the solve.
 * ``S = HQHt + R``                 -- innovation covariance.
-* ``K^T = solve(S, H Q)``          -- Cholesky solve on the MXU.
+* ``K^T = solve(S, H Q)``          -- Cholesky solve on the device.
 * ``x_post = x0 + (Q H^T) S^{-1} (y - H x0)``
 * ``P_diag = diag(Q) - rowsum((Q H^T) * K^T^T)`` -- posterior marginal
   variances without forming the full posterior covariance.
@@ -46,10 +46,7 @@ class InversionResult(NamedTuple):
 
 
 def _dense_ops(h: CSRMatrix, q: CSRMatrix):
-    compute = jnp.float32 if jax.default_backend() == "tpu" else None
-    hd = csr_to_dense(h, compute)
-    qd = csr_to_dense(q, compute)
-    return hd, qd
+    return csr_to_dense(h), csr_to_dense(q)
 
 
 @jax.jit
@@ -64,7 +61,7 @@ def invert(
 
     ``h`` is the (n_obs, n_state) sparse Jacobian, ``q`` the (n_state,
     n_state) sparse prior covariance, ``r_diag`` the diagonal observation
-    noise.  jit-composable; all heavy lifting is MXU matmuls plus the fused
+    noise.  jit-composable; all heavy lifting is dense matmuls plus the fused
     sparse triple product.
     """
     n_obs, n_state = h.shape
@@ -76,10 +73,12 @@ def invert(
     s = hqht.astype(dt) + jnp.diag(r_diag.astype(dt))
 
     qht = jnp.dot(qd, hd.T, precision="highest")  # (n_state, n_obs)
-    innov = (y.astype(dt) - hd @ x0.astype(dt)).astype(dt)
+    innov = y.astype(dt) - jnp.dot(hd, x0.astype(dt), precision="highest")
 
     chol = jax.scipy.linalg.cho_factor(s)
-    x_post = x0.astype(dt) + qht @ jax.scipy.linalg.cho_solve(chol, innov)
+    x_post = x0.astype(dt) + jnp.dot(
+        qht, jax.scipy.linalg.cho_solve(chol, innov), precision="highest"
+    )
 
     # Posterior marginal variances: diag(Q - Q H^T S^-1 H Q).
     kt = jax.scipy.linalg.cho_solve(chol, qht.T)  # (n_obs, n_state)

@@ -1,8 +1,7 @@
 """Compute kernels: dense fast path, expansion-sort SpGEMM, triple product,
-precision-policy matmuls, and Pallas TPU kernels."""
+precision-policy matmuls, and the upper-triangular product."""
 
 from .dense_path import spgemm_dense_out, spgemm_sparse_out
-from .pallas.bsr_spgemm import bsr_bsr_matmul_dense, bsr_matmul_dense, bsr_pair_plan
 from .matmul import policy_matmul
 from .spgemm_binned import binned_plan, spgemm_esc_binned
 from .spgemm_jnp import (
@@ -13,6 +12,7 @@ from .spgemm_jnp import (
     windowed_plan,
 )
 from .triple_product import triple_product_dense
+from .triu_matmul import matmul_triu
 
 __all__ = [
     "spgemm_dense_out",
@@ -26,7 +26,5 @@ __all__ = [
     "expansion_size",
     "triple_product_dense",
     "policy_matmul",
-    "bsr_matmul_dense",
-    "bsr_bsr_matmul_dense",
-    "bsr_pair_plan",
+    "matmul_triu",
 ]

@@ -1,18 +1,17 @@
-"""Dense fast path: densify -> MXU matmul -> (optionally) re-sparsify.
+"""Dense fast path: densify -> dense matmul -> (optionally) re-sparsify.
 
 Rationale: at the densities the reference targets and benchmarks (0.01-0.3,
 ``/root/reference/tests/test_with_dense.py:30``, ``README.md:216-220``) the
-product matrix is nearly dense, and a TPU's MXU performs the *dense* product
-orders of magnitude faster than any scatter-based sparse inner loop.  So for
-any problem whose dense forms fit comfortably in HBM we lower SpGEMM onto the
-MXU: scatter the CSR operands into dense tiles (pure memory ops), run one
-policy matmul, and extract the result structure with a two-phase
+product matrix is nearly dense, and a dense GEMM performs the product far
+faster than any scatter-based sparse inner loop.  So for any problem whose
+dense forms fit comfortably in device memory we lower SpGEMM onto one dense
+product: scatter the CSR operands into dense arrays (pure memory ops), run
+one policy matmul, and extract the result structure with a two-phase
 count/cumsum/fill -- the static-shape replacement of the reference's
 count->allocate->stitch pipeline (``sparse_sparse_sparse.cpp:129-150``).
 
 For problems past :attr:`Config.dense_path_limit` use
-:mod:`sparse_matrix_mult_tpu.ops.spgemm_jnp` (expansion sort) or the Pallas
-BSR kernels (:mod:`sparse_matrix_mult_tpu.ops.pallas.bsr_spgemm`).
+:mod:`sparse_matrix_mult_tpu.ops.spgemm_jnp` (expansion sort).
 """
 
 from __future__ import annotations
@@ -20,10 +19,11 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from ..config import Precision, get_config
+from ..config import get_config
 from ..types import CSRMatrix
 from .convert import csr_to_dense, dense_to_csr
-from .matmul import resolve_precision, split_operand
+from .matmul import policy_dtype, policy_matmul
+from .triu_matmul import matmul_triu
 
 __all__ = [
     "spgemm_dense_out",
@@ -38,95 +38,16 @@ def dense_path_fits(*shapes) -> bool:
     return all(int(s[0]) * int(s[1]) <= limit for s in shapes)
 
 
-def _split_values(mat: CSRMatrix):
-    hi, lo = split_operand(mat.values)
-    mk = lambda v: CSRMatrix(mat.indptr, mat.indices, v, mat.shape)
-    return mk(hi), mk(lo)
-
-
-def product_dense(a: CSRMatrix, b: CSRMatrix, precision: str) -> jax.Array:
-    """Dense A@B under a precision policy, densifying directly in compute dtype."""
-    if precision == Precision.STRICT or jax.default_backend() != "tpu":
-        ad = csr_to_dense(a)
-        bd = csr_to_dense(b)
-        return jnp.dot(ad, bd, precision="highest")
-
-    kw = dict(precision="highest", preferred_element_type=jnp.float32)
-    if precision == Precision.FAST:
-        ad = csr_to_dense(a, jnp.float32)
-        bd = csr_to_dense(b, jnp.float32)
-        out_dtype = jnp.result_type(a.dtype, b.dtype)
-        return jnp.dot(ad, bd, **kw).astype(out_dtype)
-
-    if precision == Precision.SPLIT:
-        ahi, alo = _split_values(a)
-        bhi, blo = _split_values(b)
-        ahd, ald = csr_to_dense(ahi, jnp.float32), csr_to_dense(alo, jnp.float32)
-        bhd, bld = csr_to_dense(bhi, jnp.float32), csr_to_dense(blo, jnp.float32)
-        hh = jnp.dot(ahd, bhd, **kw)
-        hl = jnp.dot(ahd, bld, **kw)
-        lh = jnp.dot(ald, bhd, **kw)
-        acc = jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
-        r = hh.astype(acc) + (hl.astype(acc) + lh.astype(acc))
-        return r.astype(jnp.result_type(a.dtype, b.dtype))
-
-    raise ValueError(f"unknown precision policy: {precision!r}")
-
-
-def _expected_terms(a: CSRMatrix, b: CSRMatrix) -> float:
-    """Expected accumulation terms per output element (drives AUTO policy).
-
-    For C[i,j] the expected number of nonzero products summed is
-    ``K * density(A) * density(B) = nnz(A)*nnz(B) / (m*K*n)``.  Capacities
-    (static, within 2x of nnz) stand in for nnz so the estimate stays usable
-    under jit; a 2x overestimate only makes AUTO upgrade to SPLIT earlier,
-    which is the safe direction.
-    """
-    m, k = a.shape
-    _, n = b.shape
-    return (a.capacity * b.capacity) / max(m * k * n, 1)
-
-
-def _split3_within_oracle(a: CSRMatrix, b: CSRMatrix, rtol: float = 1e-5) -> bool:
-    """Size-aware gate for the double-bf16 split3 kernel (VERDICT r4 item 5).
-
-    Error model, validated against ``benchmarks/results_accuracy_tpu.json``:
-    the bf16 hi/lo split represents 16 of f32's 24 mantissa bits, so each
-    partial product carries ~2^-16 relative truncation; accumulated over
-    ``T`` random-signed terms the entry-wise max relative error behaves
-    like ``2^-16 / sqrt(T)`` -- the WORST entries are the ones with the
-    fewest terms.  With T ~ Poisson(tbar) over m*n output entries the
-    smallest count is ~ ``tbar - sqrt(2 tbar ln(m n))``.  split3 is
-    engaged only when that worst case clears rtol with 2x margin:
-    measured max-rel 3.8e-6 (500^2 d=0.3, tbar~45) and 3.0e-6 (10k^2
-    d=0.1, tbar~100) stay on split3; 2.5e-5 (2000^2 d=0.05, tbar~5, where
-    single-term entries exist) falls back to 6-pass f32.  Static (uses
-    capacities), so the choice costs nothing under jit.  Disable the gate
-    with ``Config.triu_split3_gate=False`` to force the round-4 behavior.
-    Reference oracle: /root/reference/tests/test_basic.py:54.
-    """
-    import math
-
-    if not get_config().triu_split3_gate:
-        return True
-    m, _ = a.shape
-    n = b.shape[1]
-    tbar = _expected_terms(a, b)
-    tmin = max(tbar - math.sqrt(2.0 * tbar * math.log(max(m * n, 2))), 1.0)
-    return 2.0**-16 / math.sqrt(tmin) <= 0.5 * rtol
-
-
-def _triu_kernel_ok(m: int, n: int, prec: str) -> bool:
-    cfg = get_config()
-    if cfg.force_pallas_triu:
-        return True
-    return (
-        cfg.use_pallas_triu
-        and prec == Precision.FAST
-        and jax.default_backend() == "tpu"
-        and m == n
-        and m * n > 1 << 20
-    )
+def product_dense(
+    a: CSRMatrix, b: CSRMatrix, precision: str | None = None, matmul=None
+) -> jax.Array:
+    """Dense A@B under a precision policy, densifying directly in the
+    policy's compute dtype."""
+    dtype = policy_dtype(precision)
+    ad = csr_to_dense(a, dtype)
+    bd = csr_to_dense(b, dtype)
+    out_dtype = jnp.result_type(a.dtype, b.dtype)
+    return policy_matmul(ad, bd, precision, out_dtype=out_dtype, matmul=matmul)
 
 
 def spgemm_dense_out(
@@ -139,35 +60,15 @@ def spgemm_dense_out(
     (``/root/reference/src/sparse_sparse_dense.cpp:79-131``, ``:13-74``).
 
     ``symmetric=True`` returns the upper triangle with zero lower triangle,
-    matching the reference's contract.
+    matching the reference's contract.  A square symmetric product runs
+    the upper-triangular product (:func:`.triu_matmul.matmul_triu`), which
+    skips the strictly-lower blocks.
     """
-    prec = resolve_precision(precision, _expected_terms(a, b))
     if symmetric:
-        m, n = a.shape[0], b.shape[1]
-        if _triu_kernel_ok(m, n, prec):
-            # Upper-tile-only product: skips the strictly-lower MXU tiles
-            # entirely (the reference's "compute upper only" contract,
-            # sparse_sparse_dense.cpp:59-62, lifted to tile granularity).
-            from .pallas.triu_matmul import matmul_triu
-
-            ad = csr_to_dense(a, jnp.float32)
-            bd = csr_to_dense(b, jnp.float32)
-            out_dtype = jnp.result_type(a.dtype, b.dtype)
-            # Double-bf16 split3 only when the caller explicitly asked for
-            # FAST: its |A|@|B|-relative error bound is weaker than 6-pass
-            # f32 under cancellation, so AUTO must not opt into it silently.
-            # Round 5: ALSO gated by the size/term error model below, so an
-            # explicit-FAST caller at a sparse-accumulation config (where
-            # split3 measured 2.5e-5 > the 1e-5 oracle) silently gets the
-            # 6-pass kernel instead of out-of-oracle results.
-            s3 = (
-                get_config().triu_split3
-                and precision == Precision.FAST
-                and _split3_within_oracle(a, b)
-            )
-            return jnp.triu(matmul_triu(ad, bd, split3=s3)).astype(out_dtype)
-        return jnp.triu(product_dense(a, b, prec))
-    return product_dense(a, b, prec)
+        if a.shape[0] == b.shape[1]:
+            return product_dense(a, b, precision, matmul=matmul_triu)
+        return jnp.triu(product_dense(a, b, precision))
+    return product_dense(a, b, precision)
 
 
 def spgemm_sparse_out(

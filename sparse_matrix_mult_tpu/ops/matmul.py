@@ -1,11 +1,10 @@
-"""Precision-policy dense matmuls for TPU.
+"""Precision-policy dense matmuls.
 
 The reference computes strictly in float64 on CPU
-(``/root/reference/include/matrix_def.h:21-23``).  TPUs are f32/bf16-native;
-these helpers provide f64-oracle-compatible matmuls at several speed/accuracy
-points (see :class:`sparse_matrix_mult_tpu.config.Precision`).  All heavy
-arithmetic stays on the MXU; recombination of split products is cheap VPU work
-fused by XLA.
+(``/root/reference/include/matrix_def.h:21-23``).  These helpers run a
+product under one of the policies of
+:class:`sparse_matrix_mult_tpu.config.Precision`; the policy means the
+same on every backend, and every product states its precision.
 """
 
 from __future__ import annotations
@@ -15,20 +14,30 @@ import jax.numpy as jnp
 
 from ..config import Precision, get_config
 
-__all__ = ["policy_matmul", "split_operand", "resolve_precision"]
+__all__ = ["policy_matmul", "split_operand", "resolve_precision", "policy_dtype"]
+
+_POLICIES = (Precision.FAST, Precision.SPLIT, Precision.STRICT)
 
 
-def resolve_precision(precision: str | None, expected_terms: float) -> str:
-    """Resolve AUTO to a concrete policy given expected dot-product length."""
-    cfg = get_config()
-    p = precision or cfg.precision
+def resolve_precision(precision: str | None = None) -> str:
+    """Concrete policy for a request (``None`` reads :attr:`Config.precision`).
+
+    ``AUTO`` resolves to ``STRICT``: the operand dtype at
+    ``precision='highest'``.  ``FAST`` and ``SPLIT`` only ever come from
+    an explicit request.
+    """
+    p = precision or get_config().precision
     if p == Precision.AUTO:
-        return Precision.FAST if expected_terms <= cfg.auto_split_terms else Precision.SPLIT
+        return Precision.STRICT
+    if p not in _POLICIES:
+        raise ValueError(f"unknown precision policy: {p!r}")
     return p
 
 
-def _on_tpu() -> bool:
-    return jax.default_backend() == "tpu"
+def policy_dtype(precision: str | None = None):
+    """Operand dtype a policy computes in: float32 under FAST, else ``None``
+    (keep the operand dtype)."""
+    return jnp.float32 if resolve_precision(precision) == Precision.FAST else None
 
 
 def split_operand(x: jax.Array):
@@ -38,40 +47,38 @@ def split_operand(x: jax.Array):
     return hi, lo
 
 
+def _dot(a, b):
+    return jnp.dot(a, b, precision="highest")
+
+
 def policy_matmul(
     a: jax.Array,
     b: jax.Array,
-    precision: str = Precision.FAST,
+    precision: str | None = None,
     out_dtype=None,
+    matmul=None,
 ) -> jax.Array:
     """``a @ b`` under a precision policy.
 
-    On non-TPU backends (CPU tests, the virtual multi-device mesh) this is a
-    plain native-dtype matmul -- CPU float64 is exact parity with scipy.
+    ``matmul`` is the product used for every term (``a @ b`` at
+    ``precision='highest'`` by default; the triangular product passes its
+    own), so a policy composes with any product of the same contract.
     """
+    prec = resolve_precision(precision)
+    matmul = matmul or _dot
     if out_dtype is None:
         out_dtype = jnp.result_type(a.dtype, b.dtype)
 
-    if not _on_tpu() or precision == Precision.STRICT:
-        return jnp.dot(a, b, precision="highest").astype(out_dtype)
+    if prec == Precision.STRICT:
+        return matmul(a, b).astype(out_dtype)
 
-    if precision == Precision.FAST:
-        r = jnp.dot(
-            a.astype(jnp.float32),
-            b.astype(jnp.float32),
-            precision="highest",
-            preferred_element_type=jnp.float32,
-        )
-        return r.astype(out_dtype)
+    if prec == Precision.FAST:
+        return matmul(a.astype(jnp.float32), b.astype(jnp.float32)).astype(out_dtype)
 
-    if precision == Precision.SPLIT:
-        ahi, alo = split_operand(a)
-        bhi, blo = split_operand(b)
-        kw = dict(precision="highest", preferred_element_type=jnp.float32)
-        hh = jnp.dot(ahi, bhi, **kw)
-        hl = jnp.dot(ahi, blo, **kw)
-        lh = jnp.dot(alo, bhi, **kw)
-        acc = jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
-        return (hh.astype(acc) + (hl.astype(acc) + lh.astype(acc))).astype(out_dtype)
-
-    raise ValueError(f"unknown precision policy: {precision!r}")
+    # SPLIT: three f32 products of the hi/lo parts, recombined wide.
+    ahi, alo = split_operand(a)
+    bhi, blo = split_operand(b)
+    acc = jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
+    hh = matmul(ahi, bhi).astype(acc)
+    cross = matmul(ahi, blo).astype(acc) + matmul(alo, bhi).astype(acc)
+    return (hh + cross).astype(out_dtype)

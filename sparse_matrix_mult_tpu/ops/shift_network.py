@@ -1,11 +1,10 @@
 """Monotonic shift networks: vectorized scatter/compaction without scatter.
 
-TPUs execute XLA ``scatter``/``gather`` with data-dependent indices close to
-serially (measured ~4.4M updates/s on v5e -- 2.3 s to densify a 1e7-nnz CSR
-matrix), which makes naive ``.at[].add`` densification and ``jnp.nonzero``
-extraction the dominant cost of any sparse pipeline.  This module replaces
-both with fully vectorized primitives built only from ``roll`` + ``where`` --
-operations the VPU executes at full memory bandwidth.
+Naive ``.at[].add`` densification and ``jnp.nonzero`` extraction use
+data-dependent scatters and gathers.  This module replaces both with fully
+vectorized primitives built only from ``roll`` + ``where`` -- elementwise
+operations that run at memory bandwidth.  On the H100 the plain scatter and
+``nonzero(size=)`` measured faster at 10k^2 d=0.1 (``PERF.md``).
 
 Every data movement this framework needs is **order-preserving with distinct
 destinations** (CSR entries are sorted by (row, col); row compaction keeps

@@ -1,12 +1,10 @@
 """Row-binned 2D ESC: the round-5 hypersparse SpGEMM engine.
 
 The round-4 windowed engine (:func:`.spgemm_jnp.spgemm_esc_windowed`) spends
-its time in 1D device-wide passes: two 1D sorts (~5-6 ms each at 2.6M on
-v5e), a cummax tail expansion (~8.6 ms) and an indptr ``searchsorted``
-(~6 ms).  Measured on v5e (benchmarks/profile_esc_stages*.py, round 5):
-a 2D per-row sort of the same volume costs 0.9-1.8 ms -- 3-6x less -- and a
-``lax.scan`` stitch of a few hundred lane rows costs 1.5-2.7 ms.  This
-engine restructures the whole pipeline around that asymmetry:
+its time in 1D device-wide passes: two 1D sorts, a cummax tail expansion
+and an indptr ``searchsorted``.  This engine replaces them with 2D per-row
+sorts of the same volume and a ``lax.scan`` stitch of a few hundred lane
+rows (the engines have not been timed against each other on the H100):
 
 1. **Sliced ELLPACK table** (host-planned): every B row is cut into
    ``ceil(len/W)`` width-``W`` slices; a ``(S+1, 1+2W)`` device table
@@ -30,11 +28,11 @@ engine restructures the whole pipeline around that asymmetry:
    reduction and an extra code path).
 4. **Lane-local indptr**: every output row lives in exactly one lane
    (``plan.row_lane``), so ``indptr`` is a ``ceil(log2 P)``-step batched
-   lower-bound search over the compact-sorted lane keys (0.17 ms at
-   40k rows) and never touches the output-scale stitched buffer.
+   lower-bound search over the compact-sorted lane keys and never touches
+   the output-scale stitched buffer.
 5. **Scan stitch**: ``G`` dynamic-update-slices pack the per-lane packed
    runs into the final CSR arrays (forward overwrite of each run's padded
-   tail; measured ~4-8 us per lane row).  Only the column/key plane and
+   tail).  Only the column/key plane and
    the values are stitched -- the row plane never leaves 2D.
 
 Replaces the same reference hot loop as the other ESC engines
@@ -279,10 +277,8 @@ def spgemm_esc_binned(
     # Slice-table build via ALIGNED block pairs: a slice starting at s
     # spans blocks s//W and s//W+1 of a W-blocked view of B's entries, so
     # one (S+1, 2)-row gather of 2W-wide aligned rows plus a W-way masked
-    # shift select replaces the (S+1, W) element gather (measured: the
-    # element-level table build alone cost ~2.4 ms at 60k slices on v5e;
-    # element gathers price at ~2.4 ns/element while row gathers of a
-    # handful of columns price near one column -- profile_binned_parts.py).
+    # shift select replaces the (S+1, W) element gather: row gathers of a
+    # handful of columns cost about one column's element gather.
     nblk = -(-b.capacity // W) + 1
     pad = nblk * W - b.capacity
     f32 = a.values.dtype == jnp.float32 and b.values.dtype == jnp.float32
@@ -330,10 +326,8 @@ def spgemm_esc_binned(
         k2 = tbl_c[vs].reshape(G, Wp, W)
         bv = tbl_v[vs].reshape(G, Wp, W)
     ln = va_len
-    # a-value fetch as an (N, 2) row gather: a bare element gather of the
-    # same 456k indices prices 3.3 ms on v5e while the duplicated-pair row
-    # gather prices 2.2 ms (profile_expand_parts.py) -- row gathers price
-    # near one column regardless of width, element gathers per element.
+    # a-value fetch as an (N, 2) row gather (row gathers cost about one
+    # column regardless of width).
     a_pack = jnp.stack([a.values, a.values], axis=1)
     av = a_pack[va_entry][..., 0]  # (G, Wp) gather at virtual-entry scale
     v2 = av[..., None] * bv
@@ -404,9 +398,8 @@ def spgemm_esc_binned(
     # Lane-local indptr: every output row lives in exactly one lane and
     # lanes hold ascending row ranges, so indptr[r] = offs[row_lane[r]] +
     # lower_bound(lane keys, first key of row r).  A ceil(log2 P)-step
-    # batched binary search over (n_rows,) queries -- 0.17 ms at 40k on
-    # v5e -- replaces the output-scale searchsorted and its OC-sized
-    # row-extraction feed.
+    # batched binary search over (n_rows,) queries -- replaces the
+    # output-scale searchsorted and its OC-sized row-extraction feed.
     lane = row_lane.astype(INDEX_DTYPE)
     base = lane * P
     if fused:

@@ -7,10 +7,10 @@ Mirrors the reference's ``triple_product``
 (``:213-215``) -- i.e. the output is symmetrized even if ``Q`` is not
 symmetric.  We reproduce that contract exactly.
 
-On TPU the two contractions are chained MXU matmuls; XLA already fuses and
-pipelines them HBM-optimally for the dense-path sizes.  The per-thread
-O(threads * n^2) private accumulators of the reference (``:163-167``) have no
-analogue here -- accumulation happens in the systolic array.
+The two contractions are chained dense products under the precision
+policy; the second one, ``T . H^T``, runs the upper-triangular product
+(:func:`.triu_matmul.matmul_triu`), mirroring the reference's k-from-i
+loop (``sparse_sparse_dense.cpp:200-216``).
 """
 
 from __future__ import annotations
@@ -18,19 +18,16 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from ..config import Precision
 from ..types import CSRMatrix
 from .convert import csr_to_dense
-from .dense_path import _expected_terms
-from .matmul import resolve_precision, split_operand
+from .matmul import policy_dtype, policy_matmul
+from .triu_matmul import matmul_triu
 
 __all__ = ["triple_product_dense"]
 
 
-def _chain_f32(hd, qd):
-    kw = dict(precision="highest", preferred_element_type=jnp.float32)
-    t = jnp.dot(hd, qd, **kw)
-    return jnp.dot(t, hd.T, **kw)
+def _triu_transposed(t, hd):
+    return matmul_triu(t, hd, transpose_b=True)
 
 
 def triple_product_dense(
@@ -44,55 +41,12 @@ def triple_product_dense(
     ``compute_full_matrix=0`` -> upper triangle only (lower is zero);
     ``compute_full_matrix=1`` -> upper triangle mirrored into the lower.
     """
-    prec = resolve_precision(precision, _expected_terms(h, q))
+    dtype = policy_dtype(precision)
     out_dtype = jnp.result_type(h.dtype, q.dtype)
-
-    from .dense_path import _triu_kernel_ok
-
-    if prec == Precision.FAST and _triu_kernel_ok(h.shape[0], h.shape[0], prec):
-        # Second contraction via the upper-tile-only kernel: only the
-        # j >= i tiles of T . H^T are loaded and multiplied, mirroring the
-        # reference's k-from-i loop (sparse_sparse_dense.cpp:200-216).
-        from .pallas.triu_matmul import matmul_triu
-        from ..config import get_config
-
-        hd = csr_to_dense(h, jnp.float32)
-        qd = csr_to_dense(q, jnp.float32)
-        kw = dict(precision="highest", preferred_element_type=jnp.float32)
-        t = jnp.dot(hd, qd, **kw)
-        # split3 only on an explicit FAST request (see dense_path note).
-        s3 = get_config().triu_split3 and precision == Precision.FAST
-        c = matmul_triu(t, hd, transpose_b=True, split3=s3).astype(out_dtype)
-    elif prec == Precision.STRICT or jax.default_backend() != "tpu":
-        hd = csr_to_dense(h)
-        qd = csr_to_dense(q)
-        t = jnp.dot(hd, qd, precision="highest")
-        c = jnp.dot(t, hd.T, precision="highest")
-    elif prec == Precision.FAST:
-        c = _chain_f32(csr_to_dense(h, jnp.float32), csr_to_dense(q, jnp.float32)).astype(out_dtype)
-    elif prec == Precision.SPLIT:
-        # Split both contractions; drop lo*lo terms (below f64 noise here).
-        hd = csr_to_dense(h)
-        qd = csr_to_dense(q)
-        hhi, hlo = split_operand(hd)
-        qhi, qlo = split_operand(qd)
-        kw = dict(precision="highest", preferred_element_type=jnp.float32)
-        acc = jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
-        t = (
-            jnp.dot(hhi, qhi, **kw).astype(acc)
-            + jnp.dot(hhi, qlo, **kw).astype(acc)
-            + jnp.dot(hlo, qhi, **kw).astype(acc)
-        )
-        thi, tlo = split_operand(t)
-        c = (
-            jnp.dot(thi, hhi.T, **kw).astype(acc)
-            + jnp.dot(thi, hlo.T, **kw).astype(acc)
-            + jnp.dot(tlo, hhi.T, **kw).astype(acc)
-        ).astype(out_dtype)
-    else:
-        raise ValueError(f"unknown precision policy: {prec!r}")
-
-    upper = jnp.triu(c)
+    hd = csr_to_dense(h, dtype)
+    qd = csr_to_dense(q, dtype)
+    t = policy_matmul(hd, qd, precision, out_dtype=out_dtype)
+    upper = policy_matmul(t, hd, precision, out_dtype=out_dtype, matmul=_triu_transposed)
     if compute_full_matrix:
-        return upper + jnp.triu(c, 1).T
+        return upper + jnp.triu(upper, 1).T
     return upper

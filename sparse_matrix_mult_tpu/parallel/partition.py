@@ -1,6 +1,6 @@
 """Work partitioning across devices.
 
-TPU-native counterpart of the reference's entire scheduling layer, the
+Device-side counterpart of the reference's entire scheduling layer, the
 ``limits()`` row partitioner (``/root/reference/src/workdivision.cpp:16-89``),
 which splits rows into contiguous equal-*count* ranges.  Equal row counts
 load-imbalance skewed matrices, so the primary partitioner here balances by

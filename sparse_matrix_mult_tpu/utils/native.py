@@ -3,7 +3,7 @@
 Mirrors the reference's singleton library loader
 (``/root/reference/sparse_matrix_mult/matrix_ops.py:51-184``) but degrades
 gracefully: every entry point has a pure-numpy fallback, so the package works
-without the compiled library (the TPU compute path never depends on it; the
+without the compiled library (the device compute path never depends on it; the
 native layer only accelerates host-side structure analysis and stitching).
 """
 
@@ -110,39 +110,33 @@ def get_native() -> Optional[ctypes.CDLL]:
     ]
     lib.smm_num_threads.restype = ctypes.c_int32
     lib.smm_num_threads.argtypes = []
-    try:
-        _F32 = ctypes.POINTER(ctypes.c_float)
-        lib.smm_dense_pack_count_f32.restype = None
-        lib.smm_dense_pack_count_f32.argtypes = [
-            ctypes.c_int64, ctypes.c_int64, _F32, _I32,
-        ]
-        lib.smm_dense_pack_fill_f32.restype = None
-        lib.smm_dense_pack_fill_f32.argtypes = [
-            ctypes.c_int64, ctypes.c_int64, _F32, _I32, _I32, _F64,
-        ]
-        lib.smm_dense_pack_count_f64.restype = None
-        lib.smm_dense_pack_count_f64.argtypes = [
-            ctypes.c_int64, ctypes.c_int64, _F64, _I32,
-        ]
-        lib.smm_dense_pack_fill_f64.restype = None
-        lib.smm_dense_pack_fill_f64.argtypes = [
-            ctypes.c_int64, ctypes.c_int64, _F64, _I32, _I32, _F64,
-        ]
-    except AttributeError:  # older prebuilt library without the pack kernels
-        lib.smm_dense_pack_count_f32 = None
-    try:
-        lib.smm_spgemm_count.restype = None
-        lib.smm_spgemm_count.argtypes = [
-            ctypes.c_int64, ctypes.c_int64, _I32, _I32, _I32, _I32,
-            ctypes.c_int32, ctypes.c_int32, _I32,
-        ]
-        lib.smm_spgemm_fill.restype = None
-        lib.smm_spgemm_fill.argtypes = [
-            ctypes.c_int64, ctypes.c_int64, _I32, _I32, _F64, _I32, _I32,
-            _F64, ctypes.c_int32, ctypes.c_int32, _I32, _I32, _F64,
-        ]
-    except AttributeError:  # older prebuilt library without the SpGEMM
-        lib.smm_spgemm_count = None
+    _F32 = ctypes.POINTER(ctypes.c_float)
+    lib.smm_dense_pack_count_f32.restype = None
+    lib.smm_dense_pack_count_f32.argtypes = [
+        ctypes.c_int64, ctypes.c_int64, _F32, _I32,
+    ]
+    lib.smm_dense_pack_fill_f32.restype = None
+    lib.smm_dense_pack_fill_f32.argtypes = [
+        ctypes.c_int64, ctypes.c_int64, _F32, _I32, _I32, _F64,
+    ]
+    lib.smm_dense_pack_count_f64.restype = None
+    lib.smm_dense_pack_count_f64.argtypes = [
+        ctypes.c_int64, ctypes.c_int64, _F64, _I32,
+    ]
+    lib.smm_dense_pack_fill_f64.restype = None
+    lib.smm_dense_pack_fill_f64.argtypes = [
+        ctypes.c_int64, ctypes.c_int64, _F64, _I32, _I32, _F64,
+    ]
+    lib.smm_spgemm_count.restype = None
+    lib.smm_spgemm_count.argtypes = [
+        ctypes.c_int64, ctypes.c_int64, _I32, _I32, _I32, _I32,
+        ctypes.c_int32, ctypes.c_int32, _I32,
+    ]
+    lib.smm_spgemm_fill.restype = None
+    lib.smm_spgemm_fill.argtypes = [
+        ctypes.c_int64, ctypes.c_int64, _I32, _I32, _F64, _I32, _I32,
+        _F64, ctypes.c_int32, ctypes.c_int32, _I32, _I32, _F64,
+    ]
     _LIB = lib
     return _LIB
 
@@ -274,18 +268,14 @@ def dense_pack(dense: np.ndarray):
     here.  Native two-phase OpenMP kernel when available (~15x scipy's
     serial ``csr_matrix(dense)`` at 1e8 nnz on two cores); vectorized numpy
     fallback otherwise.  Host analogue of the device extraction pipeline
-    (count -> cumsum -> fill, ops/pallas/convert_kernels.py).
+    (count -> cumsum -> fill, ops/convert.py).
     """
     import scipy.sparse as sp
 
     dense = np.ascontiguousarray(dense)
     m, n = dense.shape
     lib = get_native()
-    if (
-        lib is not None
-        and getattr(lib, "smm_dense_pack_count_f32", None) is not None
-        and dense.dtype in (np.float32, np.float64)
-    ):
+    if lib is not None and dense.dtype in (np.float32, np.float64):
         f32 = dense.dtype == np.float32
         counts = np.empty(m, np.int32)
         count_fn = lib.smm_dense_pack_count_f32 if f32 else lib.smm_dense_pack_count_f64
@@ -342,18 +332,14 @@ def spgemm_host(
         n_partials = expansion_size(a_sp.indices, a_sp.nnz, b_sp.indptr)
 
     lib = get_native()
-    # Engine choice by size (measured on this 2-core host WITH the
+    # Engine choice by size (measured on a 2-core x86 host WITH the
     # sorted-indices contract): scipy's serial SMMP + sort_indices wins
     # only below ~2e4 partial products (the sort is 60% of its cost and
     # grows faster than the multiply); the OpenMP two-phase kernel emits
     # sorted rows natively and runs 1.6-3.0x faster everywhere above
     # (e.g. 1000^2 d=0.01: 1.5 ms vs 3.4 ms; 2000^2 d=0.05: 117 ms vs
     # 350 ms).  The route is "best host engine per size", not one kernel.
-    if (
-        lib is None
-        or getattr(lib, "smm_spgemm_count", None) is None
-        or (n_partials < (1 << 14) and not keep_structure)
-    ):
+    if lib is None or (n_partials < (1 << 14) and not keep_structure):
         out = (a_sp @ b_sp).tocsr()
         # scipy's matmul leaves per-row column order unsorted; the native
         # kernel sorts (csr_host.cpp:288).  Canonicalize so the host route

@@ -1,7 +1,7 @@
 """Row-binned 2D ESC engine (round 5): exact parity vs scipy.
 
-The engine restructures the ESC pipeline around per-lane 2D sorts (measured
-3-6x cheaper than device-wide 1D sorts on v5e); these tests pin its
+The engine restructures the ESC pipeline around per-lane 2D sorts in place
+of device-wide 1D sorts; these tests pin its
 correctness on the CPU mesh in f64 across every regime: generic/symmetric,
 long-B-row slicing, duplicate-run fallback, two-key (>2^31 output space),
 planner fallbacks, and chunked row offsets.

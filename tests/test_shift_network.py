@@ -1,6 +1,6 @@
 """Property tests for the monotonic shift-network routing primitives.
 
-These are the TPU-native replacement for the reference's packed-output
+These are the device replacement for the reference's packed-output
 construction and stitch (see ops/shift_network.py docstring); correctness is
 checked against direct numpy indexing.
 """
